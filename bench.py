@@ -7,8 +7,7 @@ steady-state (compile excluded).
 
 Protocol: one warmup render (compiles + first-D2H), then TRIALS timed
 renders; the headline value is the MEDIAN and the spread (min/max) is
-reported alongside so multi-tenancy noise on the shared chip cannot hide
-regressions (multi-trial protocol required by VERDICT.md round 2 item 1).
+reported alongside so run-to-run noise cannot hide regressions.
 
 Baseline: the C++ reference (embree, SSE4.2) was built in this image and
 measured on the same host (single hardware core):
@@ -23,8 +22,6 @@ import os
 import statistics
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,12 +39,9 @@ TRIALS = 5
 
 
 def main():
-    import jax
+    from tungsten_tpu.utils.cache import setup_compile_cache
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    except Exception:
-        pass
+    setup_compile_cache()
 
     from tungsten_tpu.renderer.render import render_flat
     from tungsten_tpu.scene.flatten import flatten_scene
@@ -70,21 +64,13 @@ def main():
         return
 
     n_pix = scene.meta.res_x * scene.meta.res_y
-    # batch config from the measured sweep (COVERAGE.md perf state): the
-    # regen wavefront's per-iteration cost grows SUPER-linearly with lane
-    # count, so one sample per pixel per pass with deep pass fusion wins
-    # (0.237 vs 0.179 Mpaths/s at m=4/ppb=4 on materialtest)
-    # ppb=64: after the render driver's two single-pass probe batches the
-    # remaining 62 passes fuse into one dispatch (~8.4 s device time, under
-    # the watchdog budget) — deeper fusion than the old fixed 32+32 split
+    # one sample per pixel per pass, all 64 passes fused into one dispatch
     spp_meas, m, ppb = 64, 1, 64
 
-    # production-kernel parity gate (VERDICT r3 weak #6): the TPU
-    # intersector the bench exercises must agree with the brute-force
-    # reference on THIS chip before any number is reported — the dedicated
-    # parity tests are TPU-gated and this is the one place a real chip is
-    # guaranteed present.
-    if jax.default_backend() == "tpu" and scene.gbvh is not None:
+    # intersector parity gate: the BVH walk the bench exercises must agree
+    # with the brute-force reference on this device before any number is
+    # reported
+    if scene.gbvh is not None:
         import numpy as _np
         import jax.numpy as jnp
         from tungsten_tpu.ops.gather_bvh import intersect_bvh_gather
@@ -105,12 +91,12 @@ def main():
         agree = float(_np.mean(_np.asarray(hg.prim) == _np.asarray(hb.prim)))
         if agree < 0.999:
             print(json.dumps({
-                "metric": "error: gather kernel parity failed on bench chip",
+                "metric": "error: BVH walk parity failed on this device",
                 "value": 0, "unit": "", "vs_baseline": 0,
                 "parity": agree,
             }))
             return
-        print(f"# kernel parity on chip: {agree * 100:.3f}% agree", file=sys.stderr)
+        print(f"# BVH walk parity: {agree * 100:.3f}% agree", file=sys.stderr)
 
     # warmup at the MEASURED config: a different spp/batch shape compiles a
     # different program, so a 16-spp warmup left trial 1 paying a fresh

@@ -24,7 +24,6 @@ import statistics
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 EX = "/root/reference/data/example-scenes"
@@ -107,21 +106,13 @@ def bench_kelemen(path, res, spp, trials):
         raw = json.load(f)
     raw["media"][0]["grid"]["file"] = vpath
     raw["camera"]["resolution"] = list(res)
-    # bound the per-mutation path length: the scene ships max_bounces=64
-    # with a 128-bounce medium — a single PSSMLT dispatch at that depth
-    # exceeds this runtime's dispatch watchdog (observed backend crash)
-    raw["integrator"]["max_bounces"] = min(
-        int(raw["integrator"].get("max_bounces", 16)), 12)
     from tungsten_tpu.integrators.kelemen import render_kelemen
     from tungsten_tpu.scene.flatten import flatten_scene
     from tungsten_tpu.scene.load import parse_scene
 
     scene = flatten_scene(parse_scene(raw, path=path))
     n = res[0] * res[1] * spp
-    # smaller chain pool + bootstrap: the default 16k x16 bootstrap
-    # dispatch at VDB-medium depth exceeds this runtime's watchdog
-    return _timed(lambda: render_kelemen(
-        scene, spp=spp, n_chains=1 << 12, bootstrap_factor=4), n, trials)
+    return _timed(lambda: render_kelemen(scene, spp=spp), n, trials)
 
 
 CONFIGS = [
@@ -149,10 +140,9 @@ def main():
 
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    except Exception:
-        pass
+    from tungsten_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
 
     only = set(args.only.split(",")) if args.only else None
     results = []

@@ -2,8 +2,8 @@
 //
 // The host-side analog of the reference's Bvh::BvhBuilder
 // (src/core/bvh/BvhBuilder.cpp:29-125, binned SAH) and of embree's builders —
-// built fresh for the flat skip-pointer layout the TPU traversal kernels
-// consume (see tungsten_tpu/accel/bvh.py for the layout contract):
+// built fresh for the flat skip-pointer layout the device traversal
+// consumes (see tungsten_tpu/accel/bvh.py for the layout contract):
 //
 //   nodes in DFS preorder; inner hit -> next index, miss/leaf -> skip[i];
 //   leaves cover contiguous [first, first+count) primitive ranges.

@@ -20,24 +20,13 @@ from tungsten_tpu.io.imageio import load_pfm
 from tungsten_tpu.renderer.render import render_flat
 from tungsten_tpu.scene.flatten import flatten_scene
 from tungsten_tpu.scene.load import load_scene
-from tungsten_tpu.utils.compare import ssim
+from tungsten_tpu.utils.compare import golden_agreement
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
-CORNELL = "/root/reference/data/example-scenes/cornell-box/scene.json"
+CORNELL = os.path.join(os.path.dirname(GOLDEN), "..", "scenes", "cornell-box", "scene.json")
 MATERIALTEST = "/root/reference/data/materialtest/materialtest.json"
 
 
-def _downsample(img: np.ndarray, f: int) -> np.ndarray:
-    h, w = img.shape[0] // f * f, img.shape[1] // f * f
-    img = img[:h, :w]
-    return img.reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
-
-
-def _tonemap(img: np.ndarray) -> np.ndarray:
-    return np.clip(np.power(np.clip(img, 0.0, None), 1.0 / 2.2), 0.0, 1.0)
-
-
-@pytest.mark.skipif(not os.path.exists(CORNELL), reason="reference data absent")
 def test_cornell_matches_reference_render():
     golden = load_pfm(os.path.join(GOLDEN, "cornell_256.pfm"))
     doc = load_scene(CORNELL)
@@ -46,14 +35,10 @@ def test_cornell_matches_reference_render():
     img = render_flat(scene, spp=64, samples_per_pass=4, passes_per_batch=4)
     assert img.shape == golden.shape
 
-    # flux agreement: per-channel means (tonemap-independent) within 2%
-    m_ours = img.reshape(-1, 3).mean(0)
-    m_ref = golden.reshape(-1, 3).mean(0)
-    ratio = m_ours / np.maximum(m_ref, 1e-9)
+    # flux: per-channel means (tonemap-independent) within 2%; structure:
+    # 4x box-downsampled tonemapped SSIM (noise-reduced)
+    ratio, s = golden_agreement(img, golden, 4)
     assert np.all(np.abs(ratio - 1.0) < 0.02), f"channel flux ratio {ratio}"
-
-    # structure: 4x box-downsampled tonemapped SSIM (noise-reduced)
-    s = ssim(_tonemap(_downsample(img, 4)), _tonemap(_downsample(golden, 4)))
     assert s > 0.97, f"downsampled SSIM {s:.4f}"
 
 
@@ -66,36 +51,27 @@ def test_materialtest_matches_reference_render():
     img = render_flat(scene, spp=32, samples_per_pass=4, passes_per_batch=4)
     assert img.shape == golden.shape
 
-    m_ours = img.reshape(-1, 3).mean(0)
-    m_ref = golden.reshape(-1, 3).mean(0)
-    ratio = m_ours / np.maximum(m_ref, 1e-9)
+    ratio, s = golden_agreement(img, golden, 4)
     assert np.all(np.abs(ratio - 1.0) < 0.03), f"channel flux ratio {ratio}"
-
-    s = ssim(_tonemap(_downsample(img, 4)), _tonemap(_downsample(golden, 4)))
     assert s > 0.93, f"downsampled SSIM {s:.4f}"
 
 
 @pytest.mark.skipif(os.environ.get("TUNGSTEN_TEST_SLOW", "") != "1",
-                    reason="converged render (~140 s TPU); TUNGSTEN_TEST_SLOW=1")
-@pytest.mark.skipif(not os.path.exists(CORNELL), reason="reference data absent")
+                    reason="converged 8192-spp render; TUNGSTEN_TEST_SLOW=1")
 def test_cornell_quality_contract_converged():
     """The BASELINE.json quality contract, demonstrated at convergence:
     full-res tonemapped SSIM >= 0.99 against the C++ reference's 16384-spp
     render (tests/golden/cornell_16k.pfm, rendered with the in-image embree
-    build). Measured 2026-08-19 on the bench chip (TPU v5e), 137 s render:
-    SSIM 0.9990 at 8192 spp, per-channel flux ratio 0.9975-0.9980
-    (COVERAGE.md "Quality contract"). Requires the package-wide f32 matmul
-    precision (__init__.py) — bf16 MXU camera rotations shift the image
-    ~0.5 px and cap SSIM at ~0.62."""
+    build). Recorded result: SSIM 0.9990 at 8192 spp, per-channel flux
+    ratio 0.9975-0.9980 (COVERAGE.md "Quality contract"). Requires the
+    package-wide f32 matmul precision (__init__.py) — reduced-precision
+    camera rotations shift the image ~0.5 px and cap SSIM at ~0.62."""
     golden = load_pfm(os.path.join(GOLDEN, "cornell_16k.pfm"))
     doc = load_scene(CORNELL)
     doc.camera["resolution"] = [256, 144]
     scene = flatten_scene(doc)
     img = render_flat(scene, spp=8192, samples_per_pass=1, passes_per_batch=64,
                       seed=123)
-    m_ours = img.reshape(-1, 3).mean(0)
-    m_ref = golden.reshape(-1, 3).mean(0)
-    ratio = m_ours / np.maximum(m_ref, 1e-9)
+    ratio, s = golden_agreement(img, golden, 1)
     assert np.all(np.abs(ratio - 1.0) < 0.005), f"channel flux ratio {ratio}"
-    s = ssim(_tonemap(img), _tonemap(golden))
     assert s >= 0.99, f"full-res converged SSIM {s:.4f}"

@@ -2,16 +2,17 @@
 
 The promise of parallel/mesh.py: lane ids are global and the RNG is a
 stateless counter, so sharding the wavefront over any device count must not
-change a single bit of the output (the TPU-native replacement for the
+change a single bit of the output (the wavefront replacement for the
 reference's thread pool, SURVEY.md §2.4 / thread/ThreadPool.hpp:20-56).
 """
+import os
 import sys
 
 import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tungsten_tpu.parallel.mesh import make_mesh
 from tungsten_tpu.renderer.render import render_flat
@@ -95,9 +96,9 @@ def test_multichip_sppm_matches_single(scene):
 
 def test_multichip_kelemen_matches_single(scene):
     """VERDICT r2 weak #7: PSSMLT chains shard over the mesh — the chain
-    state lane-shards, the splat buffer psums over ICI. The bootstrap and
-    mutation streams are lane-id keyed, so the estimate must match the
-    single-device run to reassociation tolerance."""
+    state lane-shards, the splat buffer psums over the device interconnect.
+    The bootstrap and mutation streams are lane-id keyed, so the estimate
+    must match the single-device run to reassociation tolerance."""
     from tungsten_tpu.integrators.kelemen import render_kelemen
 
     kw = dict(spp=8, seed=17, n_chains=1 << 10, bootstrap_factor=2)

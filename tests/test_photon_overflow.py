@@ -67,7 +67,7 @@ def test_baseline_sppm_overflow_free():
     import numpy as np
 
     diag = float(np.linalg.norm(np.asarray(
-        scene.bvh.node_max[0] - scene.bvh.node_min[0])))
+        scene.bounds[1] - scene.bounds[0])))
     # recorded on-chip sweep (round 5): cap=128 with r=diag*5e-3 still
     # folds 6.8M photons; r=diag*1.5e-3 folds 7k; r=diag*8e-4 -> ZERO
     render_sppm(scene, spp=1, photons_per_iter=5_000_000,

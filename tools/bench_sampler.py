@@ -7,7 +7,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import jax
@@ -15,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from tungsten_tpu.sampling import Sampler
+from tungsten_tpu.utils.cache import setup_compile_cache
 
 N = 141_000
 DRAWS = 12
@@ -49,6 +49,7 @@ def run(strat):
 
 
 if __name__ == "__main__":
+    setup_compile_cache()
     print("backend", jax.default_backend())
     run(False)
     run(True)

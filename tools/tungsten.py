@@ -17,7 +17,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description="tungsten-tpu renderer")
     ap.add_argument("scenes", nargs="+", help="scene JSON files")
     ap.add_argument("-o", "--output", help="override output file")
@@ -33,15 +33,13 @@ def main():
     ap.add_argument("--samples-per-pass", type=int, default=1)
     ap.add_argument("--passes-per-batch", type=int, default=16)
     ap.add_argument("-q", "--quiet", action="store_true")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/jax_comp"))
-    try:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
-    except Exception:
-        pass
+    from tungsten_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 

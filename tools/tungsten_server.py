@@ -5,7 +5,6 @@
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import os
 import sys
@@ -63,7 +62,7 @@ class Handler(BaseHTTPRequestHandler):
         elif self.path.startswith("/render"):
             import numpy as np
             import jax.numpy as jnp
-            from PIL import Image
+            from tungsten_tpu.io.imageio import encode_png
             from tungsten_tpu.models.cameras import tonemap
 
             with STATE["lock"]:
@@ -74,9 +73,7 @@ class Handler(BaseHTTPRequestHandler):
                 return
             ldr = np.clip(np.asarray(tonemap(tm, jnp.asarray(frame))), 0, 1)
             u8 = np.clip((ldr * 255).astype(np.int32), 0, 255).astype(np.uint8)
-            buf = io.BytesIO()
-            Image.fromarray(u8, "RGB").save(buf, "PNG")
-            self._send(200, "image/png", buf.getvalue())
+            self._send(200, "image/png", encode_png(u8))
         elif self.path.startswith("/log"):
             with STATE["lock"]:
                 body = "\n".join(STATE["log"]).encode()
@@ -127,6 +124,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0xBA5EBA11)
     args = ap.parse_args()
 
+    from tungsten_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
     STATE["queue"] = list(args.scenes)
     t = threading.Thread(target=render_worker, args=(args.scenes, args.spp, args.seed), daemon=True)
     t.start()

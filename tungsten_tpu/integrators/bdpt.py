@@ -6,7 +6,7 @@ BidirectionalPathTracer.cpp:21-68): one camera subpath + one light subpath per
 sample, every (s, t) connection evaluated with area-measure MIS weights that
 honor dirac vertices.
 
-TPU form: fixed-K vertex arrays (N, K, ...) filled by a lockstep subpath
+Wavefront form: fixed-K vertex arrays (N, K, ...) filled by a lockstep subpath
 tracing loop (the same kernel set as the path tracer); connections run as a
 Python loop over valid (s, t) pairs, each a full wavefront batch with one
 merged visibility intersect; t=1 connections splat through the light-tracer

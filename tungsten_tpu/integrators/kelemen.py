@@ -5,7 +5,7 @@ KelemenMltIntegrator.cpp bootstrap :69-124, KelemenMltTracer chain loop
 :103-146 with expected-value splatting :116-138), in the path-traced variant
 (settings "bidirectional": false — the reference supports both).
 
-TPU design (SURVEY.md §7): thousands of *parallel* Markov chains, one
+Wavefront design (SURVEY.md §7): thousands of *parallel* Markov chains, one
 mutation step per wavefront dispatch. Chain state is the primary-sample
 table (N, D, 2) consumed by the table-driven Sampler; mutations are the
 Kelemen large-step/small-step kernels applied to the whole table at once.

@@ -7,7 +7,7 @@ shadow walk, splat filtered contributions into the framebuffer, continue via
 adjoint BSDF sampling (no NEE, no emission gathering — handleSurface with
 adjoint=true).
 
-TPU form: one lax.while_loop over bounce depth for the particle megabatch;
+Wavefront form: one lax.while_loop over bounce depth for the particle megabatch;
 camera connections scatter-add into a per-pass (H*W, 3) splat buffer with
 2x2 tent-filter footprints (the AtomicFramebuffer::splatFiltered analog,
 AtomicFramebuffer.hpp:50-90 — scatter-add replaces CAS atomics).

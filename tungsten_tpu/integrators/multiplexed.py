@@ -5,7 +5,7 @@ Mirror of src/core/integrators/multiplexed_mlt/ (MultiplexedMltTracer.hpp:
 *inside* the chain from a primary-sample dimension;
 MultiplexedMltIntegrator.cpp:92-94 — per-length luminance budgeting).
 
-TPU form: every chain population is a slice of one fixed-width wavefront;
+Wavefront form: every chain population is a slice of one fixed-width wavefront;
 a lane carries its (static) total vertex count V and reads its technique
 selector from table slot 1. Evaluation reuses the BDPT machinery
 (integrators.bdpt._bdpt_sample) with per-lane technique masks, so only the

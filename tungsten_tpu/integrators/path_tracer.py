@@ -1,6 +1,6 @@
 """Wavefront unidirectional path tracer with NEE + power-heuristic MIS.
 
-The TPU inversion of the reference's recursive per-ray megakernel
+The wavefront inversion of the reference's recursive per-ray megakernel
 (PathTracer::traceSample, src/core/integrators/path_tracer/PathTracer.cpp:14-149
 + TraceBase::handleSurface, TraceBase.cpp:516-568): one `lax.while_loop` over
 bounce depth drives the whole sample megabatch in lockstep; dead lanes are
@@ -19,10 +19,10 @@ masked. Estimator structure is identical to the reference:
   lanes that miss: env-map contribution with the same MIS gating
        [handleInfiniteLights, TraceBase.cpp:570-578]
 
-Differences from the reference are TPU-native, not semantic: stateless
-counter-based RNG instead of per-thread PCG streams, masked vectorized BSDF
-dispatch instead of virtual calls, fixed per-bounce random-dimension budget so
-all lanes stay aligned inside the while loop.
+Differences from the reference are those of a wavefront, not semantic:
+stateless counter-based RNG instead of per-thread PCG streams, masked
+vectorized BSDF dispatch instead of virtual calls, fixed per-bounce
+random-dimension budget so all lanes stay aligned inside the while loop.
 """
 from __future__ import annotations
 
@@ -39,14 +39,19 @@ from ..models.primitives import analytic as A
 from ..models.primitives import lights as L
 from ..models.textures import eval_texture
 from ..ops import intersect as isect
+from ..ops.gather_bvh import (
+    intersect_bvh_gather,
+    intersect_bvh_gather_mixed,
+    occluded_bvh_gather,
+)
 from ..sampling import Sampler, warps
 from ..scene.flatten import DEFAULT_EPSILON, FlatScene
 
 INF = isect.INF
 DIMS_PER_BOUNCE = 24
 import os as _os
-# compaction re-sorts lanes each bounce; measured on-chip it trades away
-# the tile coherence that feeds Pallas chunk culling, so it is opt-in
+# lockstep-wavefront compaction: re-sort lanes each bounce by the next
+# ray's origin cell and direction octant; opt-in (TUNGSTEN_COMPACT=1)
 _NO_COMPACT = _os.environ.get("TUNGSTEN_COMPACT", "") != "1"
 _NO_STRAT = _os.environ.get("TUNGSTEN_NO_STRAT", "") == "1"
 # debug: isolate one MIS strategy half ("light" = light-sampling strategy
@@ -61,10 +66,7 @@ _REGEN_MERGED = _os.environ.get("TUNGSTEN_REGEN_MERGED", "1") == "1"
 SHADOW_FUDGE = 1.0 - 1e-3  # cf. attenuatedEmission's 1+1e-3 (TraceBase.cpp:155)
 
 
-_ISECT_KIND = _os.environ.get("TUNGSTEN_ISECT", "gather")
-
-
-def _intersect(scene: FlatScene, o, d, tnear, tfar, any_hit=False):
+def _intersect(scene: FlatScene, o, d, tnear, tfar):
     """Closest hit over triangles (BVH) + analytic prims. Analytic prims are
     intersected first — their t clips the BVH walk's tfar (pruning) — and the
     winner carries a virtual id >= T with (u, v) = the analytic uv."""
@@ -72,7 +74,7 @@ def _intersect(scene: FlatScene, o, d, tnear, tfar, any_hit=False):
         from ..models.primitives.analytic import intersect_analytic
 
         ah = intersect_analytic(scene.ana, o, d, tnear, tfar)
-        h = _intersect_tris(scene, o, d, tnear, jnp.minimum(tfar, ah.t), any_hit)
+        h = _intersect_tris(scene, o, d, tnear, jnp.minimum(tfar, ah.t))
         n_tris = scene.tris.v0.shape[0]
         pick_a = (ah.k >= 0) & (ah.t < h.t)
         return isect.Hit(
@@ -81,30 +83,19 @@ def _intersect(scene: FlatScene, o, d, tnear, tfar, any_hit=False):
             u=jnp.where(pick_a, ah.uv[..., 0], h.u),
             v=jnp.where(pick_a, ah.uv[..., 1], h.v),
         )
-    return _intersect_tris(scene, o, d, tnear, tfar, any_hit)
+    return _intersect_tris(scene, o, d, tnear, tfar)
 
 
-def _intersect_tris(scene: FlatScene, o, d, tnear, tfar, any_hit=False):
-    n_tris = scene.tris.v0.shape[0]
-    backend = jax.default_backend()
-    if backend == "tpu" and n_tris > 64:
-        if _ISECT_KIND == "gather" and scene.gbvh is not None:
-            from ..ops.gather_bvh import intersect_bvh_gather
+def _walks_bvh(scene: FlatScene) -> bool:
+    """Triangles are traced by the BVH walk when the scene asks for it
+    (renderer `scene_bvh`) and has more than 64 of them; otherwise by the
+    brute-force test, which is cheaper for a handful of triangles."""
+    return scene.meta.use_bvh and scene.tris.v0.shape[0] > 64
 
-            return intersect_bvh_gather(scene.gbvh, o, d, tnear, tfar)
-        if scene.pbvh8 is not None:
-            from ..ops.pallas_bvh8 import intersect_bvh_pallas8
 
-            return intersect_bvh_pallas8(scene.pbvh8, scene.tris, o, d, tnear, tfar)
-        if scene.pbvh is not None:
-            from ..ops.pallas_bvh import intersect_bvh_pallas
-
-            return intersect_bvh_pallas(scene.pbvh, o, d, tnear, tfar)
-        from ..ops.pallas_intersect import intersect_pallas
-
-        return intersect_pallas(scene.ptris, o, d, tnear, tfar)
-    if scene.meta.use_bvh and n_tris > 64:
-        return isect.intersect_bvh(scene.bvh, scene.tris, o, d, tnear, tfar, any_hit=any_hit)
+def _intersect_tris(scene: FlatScene, o, d, tnear, tfar):
+    if _walks_bvh(scene):
+        return intersect_bvh_gather(scene.gbvh, o, d, tnear, tfar)
     return isect.intersect_brute(scene.tris, o, d, tnear, tfar)
 
 
@@ -141,10 +132,9 @@ def _shading_data(scene: FlatScene, hit: isect.Hit, o, d):
 def _occluded(scene, p, d, dist):
     """Shadow query: is the segment [eps, dist*fudge] blocked?
 
-    On TPU this takes the dedicated any-hit walk (ops.pallas_bvh2), whose
-    lanes latch on first hit and leave the traversal union — measured ~25x
-    faster than the closest-hit kernel on shadow batches (the embree
-    rtcOccluded split, TraceableScene.hpp:211-223)."""
+    Takes the any-hit walk, whose lanes latch on their first hit and leave
+    the traversal (the embree rtcOccluded split,
+    TraceableScene.hpp:211-223)."""
     far = jnp.where(dist >= INF, INF, dist * SHADOW_FUDGE)
     near = jnp.full(p.shape[:-1], DEFAULT_EPSILON)
     return _occluded_raw(scene, p, d, near, far)
@@ -519,10 +509,9 @@ def _volume_nee(scene, sampler, p, d_in, medium, ptype, g):
 
 def _compact_sort(key, state_dict, names_3, names_1):
     """Co-permute all lane state by `key` ascending — dead lanes sink to the
-    tail (their tfar=0 rays make whole Pallas tiles cull every triangle
-    chunk), alive lanes group by direction octant so tile-level AABB culling
-    sees coherent beams. One argsort + two packed gathers (XLA gather cost is
-    per-row, nearly independent of row width)."""
+    tail, alive lanes group by origin cell and direction octant so
+    neighbouring lanes walk neighbouring BVH nodes. One argsort + two packed
+    gathers."""
     perm = jnp.argsort(key)
     out = dict(state_dict)
     f32_cols, f32_layout = [], []
@@ -1052,13 +1041,11 @@ def _trace_pass_fast(scene: FlatScene, seed, lane_ids, px, py, table=None):
                 aov_albedo=s["aov_albedo"],
             )
         if n >= 4096 and not _NO_COMPACT:
-            # compaction: dead lanes sink (their tfar=0 rays make whole
-            # Pallas tiles cull every chunk); alive lanes group by a coarse
+            # compaction: dead lanes sink; alive lanes group by a coarse
             # morton cell of the next ray origin + direction octant, so
-            # secondary-bounce tiles stay spatially coherent beams and the
-            # kernel's per-chunk AABB culling keeps firing
-            root_lo = scene.bvh.node_min[0]
-            root_ext = jnp.maximum(scene.bvh.node_max[0] - root_lo, 1e-6)
+            # secondary-bounce lanes stay spatially coherent
+            root_lo = scene.bounds[0]
+            root_ext = jnp.maximum(scene.bounds[1] - root_lo, 1e-6)
             q = jnp.clip(((o_new - root_lo) / root_ext * 4.0).astype(jnp.int32), 0, 3)
             morton = (
                 (q[:, 0] & 1) | ((q[:, 1] & 1) << 1) | ((q[:, 2] & 1) << 2)
@@ -1171,31 +1158,27 @@ def _choose_and_sample_light(scene, sampler, p):
 def _intersect_mixed(scene, o, d, tnear, tfar, latch):
     """ONE walk for a mixed [any-hit | closest-hit] wavefront: lanes with
     latch=True record the first hit and leave the walk (only prim >= 0 is
-    meaningful), latch=False lanes run closest-hit. On the TPU gather
-    intersector this merges a bounce's shadow + continuation rays into a
-    single traversal whose straggler phases amortize over both ray
-    classes; elsewhere it falls back to a plain closest-hit walk (same
-    booleans, more work per shadow lane)."""
-    n_tris = scene.tris.v0.shape[0]
-    if (jax.default_backend() == "tpu" and n_tris > 64
-            and _ISECT_KIND == "gather" and scene.gbvh is not None):
-        from ..ops.gather_bvh import intersect_bvh_gather_mixed
+    meaningful), latch=False lanes run closest-hit. This merges a bounce's
+    shadow + continuation rays into a single traversal whose straggler
+    phases amortize over both ray classes. Scenes traced by brute force
+    take a plain closest-hit query (same booleans)."""
+    if not _walks_bvh(scene):
+        return _intersect(scene, o, d, tnear, tfar)
+    if scene.ana is not None:
+        from ..models.primitives.analytic import intersect_analytic
 
-        if scene.ana is not None:
-            from ..models.primitives.analytic import intersect_analytic
-
-            ah = intersect_analytic(scene.ana, o, d, tnear, tfar)
-            h = intersect_bvh_gather_mixed(
-                scene.gbvh, o, d, tnear, jnp.minimum(tfar, ah.t), latch)
-            pick_a = (ah.k >= 0) & (ah.t < h.t)
-            return isect.Hit(
-                t=jnp.where(pick_a, ah.t, h.t),
-                prim=jnp.where(pick_a, n_tris + ah.k, h.prim),
-                u=jnp.where(pick_a, ah.uv[..., 0], h.u),
-                v=jnp.where(pick_a, ah.uv[..., 1], h.v),
-            )
-        return intersect_bvh_gather_mixed(scene.gbvh, o, d, tnear, tfar, latch)
-    return _intersect(scene, o, d, tnear, tfar)
+        n_tris = scene.tris.v0.shape[0]
+        ah = intersect_analytic(scene.ana, o, d, tnear, tfar)
+        h = intersect_bvh_gather_mixed(
+            scene.gbvh, o, d, tnear, jnp.minimum(tfar, ah.t), latch)
+        pick_a = (ah.k >= 0) & (ah.t < h.t)
+        return isect.Hit(
+            t=jnp.where(pick_a, ah.t, h.t),
+            prim=jnp.where(pick_a, n_tris + ah.k, h.prim),
+            u=jnp.where(pick_a, ah.uv[..., 0], h.u),
+            v=jnp.where(pick_a, ah.uv[..., 1], h.v),
+        )
+    return intersect_bvh_gather_mixed(scene.gbvh, o, d, tnear, tfar, latch)
 
 
 def _occluded_raw(scene, p, d, near, far):
@@ -1211,31 +1194,15 @@ def _occluded_raw(scene, p, d, near, far):
 
 
 def _occluded_raw_tris(scene, p, d, near, far):
-    if _os.environ.get("TUNGSTEN_SHADOW_CLOSEST", "") == "1":
-        h = _intersect_tris(scene, p, d, near, far)
-        return h.prim >= 0
-    if jax.default_backend() == "tpu" and _os.environ.get("TUNGSTEN_NO_ANYHIT", "") != "1":
-        if _ISECT_KIND == "gather" and scene.gbvh is not None:
-            from ..ops.gather_bvh import occluded_bvh_gather
-
-            return occluded_bvh_gather(scene.gbvh, p, d, near, far)
-        if (scene.pbvh8 is not None
-                and _os.environ.get("TUNGSTEN_SHADOW_BVH2", "") != "1"):
-            from ..ops.pallas_bvh8 import occluded_bvh_pallas8
-
-            return occluded_bvh_pallas8(scene.pbvh8, p, d, near, far)
-        if scene.pbvh3 is not None:
-            from ..ops.pallas_bvh2 import occluded_bvh_pallas3
-
-            return occluded_bvh_pallas3(scene.pbvh3, p, d, near, far)
-    h = _intersect_tris(scene, p, d, near, far, any_hit=True)
-    return h.prim >= 0
+    if _walks_bvh(scene):
+        return occluded_bvh_gather(scene.gbvh, p, d, near, far)
+    return _intersect_tris(scene, p, d, near, far).prim >= 0
 
 
 @partial(jax.jit, static_argnames=("n_passes",))
 def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
                       pass_base, n_passes=1):
-    """Regenerating (persistent-threads) wavefront PT — the TPU analog of a
+    """Regenerating (persistent-threads) wavefront PT — the wavefront analog of a
     GPU megakernel with path regeneration [Laine et al. 2013 wavefront
     formulation]: a fixed-width W wavefront where every lane that finishes
     its path immediately respawns a fresh camera path from the remaining
@@ -1781,7 +1748,7 @@ def trace_regen_batch(scene: FlatScene, seed, px_cycle, py_cycle, pix_cycle,
 @partial(jax.jit, static_argnames=("n_passes",))
 def trace_batch(scene: FlatScene, seed, lane_base, px, py, pass_start, n_passes=1):
     """Accumulate n_passes wavefront passes in one dispatch (fori_loop) —
-    amortizes launch/transfer latency, critical on remote-attached TPUs.
+    amortizes launch and transfer latency.
     Returns summed radiance (N, 3)."""
 
     want_aovs = bool(scene.meta.aovs)

@@ -6,7 +6,7 @@ traceSensorPath :246-420 walks specular chains and density-estimates at the
 first non-specular hit; ProgressivePhotonMapIntegrator.cpp:42-110 drives
 iterations with the radius schedule gamma = prod (i+alpha)/(i+1)).
 
-TPU design (SURVEY.md §7): the kd-tree kNN gather becomes a *fixed-radius
+Wavefront design (SURVEY.md §7): the kd-tree kNN gather becomes a *fixed-radius
 hash grid* — photon cell keys sorted on device (one lax.sort), cell ranges
 found by searchsorted, and the camera gather reads each of the 27 neighbor
 cells as one bundled contiguous fetch (XLA row-gather cost is width-
@@ -406,7 +406,7 @@ def build_beam_grid(bo, bd, blen, bpow, bmed, valid, bounce, r_beam):
     always within the 3x3x3 neighborhood of any crossing point its interval
     owns — see the interval dedup in _beam1d_gather). The reference inserts
     beams into a BVH (PhotonTracer.hpp:103-112 + GridAccel); the sorted
-    hash grid is the TPU-native equivalent of its memory-budgeted DDA grid
+    hash grid is the wavefront equivalent of its memory-budgeted DDA grid
     (GridAccel.hpp:173-199). Beams longer than BEAM_STATIONS * r_beam get
     truncated coverage — counted and returned as overflow."""
     nb = bo.shape[0]
@@ -645,8 +645,8 @@ def _plane0d_gather(scene, o, d, seg, medium, active, prows, pmask, cam_bounce,
     IF the continued flight into the plane is unoccluded (shadow ray from
     the crossing along -d1, length v*l1).
 
-    TPU form: a dense chunked sweep over the compacted plane table — the
-    reference's frustum grid / BVH trades poorly against the VPU, and
+    Wavefront form: a dense chunked sweep over the compacted plane table — the
+    reference's frustum grid / BVH trades poorly against wide vector code, and
     MAX_PLANES is small because planes are exact estimators. Visibility:
     the reference casts one shadow ray PER crossing (hundreds per camera
     ray with scene-sized planes); here a weighted reservoir keeps ONE
@@ -783,7 +783,7 @@ def _plane1d_gather(scene, o, d, seg, medium, active, prows, pmask, r_pl,
     `occluded` tests the continued flight v1 -> v1 + uvw.y l1 d1 at 0.99
     of its length (the reference's shadow-cache query, :182-187).
 
-    TPU form mirrors _plane0d_gather's chunked sweep. The positive CV term
+    Wavefront form mirrors _plane0d_gather's chunked sweep. The positive CV term
     needs no visibility and is summed EXACTLY over every crossed plane; the
     subtractive occlusion-correction term is reservoir-sampled (one any-hit
     walk per camera ray per bounce, chosen ~ its luminance) — unbiased for
@@ -942,7 +942,7 @@ def _volume_beam_gather(scene, o, d, seg, medium, active, vpack, vstarts,
     3/(pi r^2) (1 - d^2/r^2)^2 * phase(p.dir, -d) * Tr(0 -> t*) * power,
     gated by fullPathBounce = cam_bounce + p.bounce - 1 in [min, max).
 
-    TPU form: a lockstep 3D-DDA walks the volume hash grid (cell = 2 r_vol)
+    Wavefront form: a lockstep 3D-DDA walks the volume hash grid (cell = 2 r_vol)
     along each ray; at each visited cell the 27 neighbors are fetched as
     bundled rows and DEDUPLICATED by the foot-cell test — a photon counts
     only in the DDA cell containing its perpendicular foot point, which is
@@ -1209,7 +1209,7 @@ def gather_pass(scene: FlatScene, seed, lane_ids, px, py, pack, starts, counts,
     # ---- kNN radius (KdTree::nearestNeighbours, KdTree.hpp:178): the
     # reference's default surface estimate is gather-count-driven — it uses
     # the distance to the gatherCount-th nearest photon (capped at the max
-    # search radius) as the density radius. TPU shape: ONE 27-cell pass
+    # search radius) as the density radius. Wavefront shape: ONE 27-cell pass
     # accumulates a per-lane histogram of squared distances in B uniform
     # r^2 bins, then the per-lane radius is the first bin where the
     # cumulative count reaches K (resolution radius^2/B; exact in the

@@ -11,7 +11,7 @@ WritableMetropolisSampler.hpp) — the acceptance then compares the same path
 under two techniques, which mixes across strategies at zero re-exploration
 cost.
 
-TPU form: the chain state is the (N, D, 2) primary-sample table (see
+Wavefront form: the chain state is the (N, D, 2) primary-sample table (see
 kelemen.py). A strategy step re-traces the current tables (pure replay),
 gathers the realized vertex chain z_0..z_{V-1} (camera root .. light root),
 and REWRITES the table slots that differ under s':

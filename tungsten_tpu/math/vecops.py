@@ -1,7 +1,7 @@
 """Device-side batched vector math (jnp, float32, SoA-last layout).
 
 All functions operate on arrays whose last axis is the 3-vector, i.e. shape
-(..., 3), so a wavefront of N rays is (N, 3). This is the TPU-native analog of
+(..., 3), so a wavefront of N rays is (N, 3). This is the wavefront analog of
 the reference's Vec3f (src/core/math/Vec.hpp): one lane per ray instead of one
 struct per ray.
 """

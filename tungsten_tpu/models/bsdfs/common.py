@@ -17,7 +17,7 @@ All functions are batched over the wavefront: params (N, P), wi/wo (N, 3).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree
+from ...utils.pytree import dataclass as pytree
 
 
 class Lobes:

@@ -1,7 +1,7 @@
 """Material table + batched masked BSDF dispatch.
 
 The reference dispatches through virtual Bsdf* calls (BsdfFactory.cpp:29-52).
-The TPU-native equivalent: materials live in a SoA table (type id, lobe mask,
+The wavefront equivalent: materials live in a SoA table (type id, lobe mask,
 16-float parameter row, albedo texture id); the wavefront evaluates each BSDF
 type *present in the scene* (a static set known at trace time) over all lanes
 and selects by mask. With material-sorted queues (later optimization) the
@@ -28,7 +28,7 @@ from typing import Dict, List
 
 import numpy as np
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree, field
+from ...utils.pytree import dataclass as pytree, field
 
 from .common import BsdfSample, Lobes
 from . import lambert, null, mirror, rough_conductor, smooth_coat, oren_nayar, phong

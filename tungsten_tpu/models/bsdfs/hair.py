@@ -6,7 +6,7 @@ scattering N_p precomputed by Gauss-Legendre integration over the fiber
 width into 64x64 (phi, cosThetaD) tables (:318-415), lobe shifts from the
 hair scale tilt (:200-204), melanin-derived absorption (:433-440).
 
-Conventions (TPU form):
+Conventions (Wavefront form):
   * The local shading frame has the FIBER TANGENT on the y axis (the
     reference Curves::tangentSpace puts the curve tangent on B,
     Curves.cpp:517-528); sin(theta) = direction.y.

@@ -1,8 +1,8 @@
 """Heterogeneous density grids (the reference's grids/ layer).
 
 Re-implements the Grid interface — density / emission / opticalDepth /
-inverseOpticalDepth (src/core/grids/Grid.hpp:13-25) — TPU-first: the grid
-is a dense HBM-resident array sampled with vectorized trilinear (or
+inverseOpticalDepth (src/core/grids/Grid.hpp:13-25) — the grid
+is a dense device-resident array sampled with vectorized trilinear (or
 nearest) gathers, and both optical-depth directions are a fixed-step
 lockstep raymarch over the ray's grid-bounds overlap (no data-dependent
 loop lengths, so the whole march stays inside one fused jit region).
@@ -29,7 +29,7 @@ import os
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree, field
+from ...utils.pytree import dataclass as pytree, field
 
 from ...math.transform import mat4_from_json
 

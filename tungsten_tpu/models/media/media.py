@@ -17,7 +17,7 @@ from typing import List
 
 import numpy as np
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree, field
+from ...utils.pytree import dataclass as pytree, field
 
 from ..grids import (
     DenseGrid,

@@ -4,8 +4,8 @@ The reference intersects these exactly (Sphere.cpp:97-161, Disk.cpp:64-105,
 Cylinder.cpp:55-116) and direct-samples spheres by uniform spherical cap
 (Sphere.cpp:173-191); rounds 1-3 tessellated them, which made silhouettes
 polygonal and sphere emitters noisier than the reference. This module is
-the TPU-native equivalent: every analytic primitive is tested against every
-lane with (A, N) sublane-tile math (A = #analytic prims, small), the winner
+the wavefront equivalent: every analytic primitive is tested against every
+lane with (A, N) tile math (A = #analytic prims, small), the winner
 is min-selected with the same reduction-free one-hot pattern as
 ops.gather_bvh, and the result merges with the triangle BVH hit by t.
 
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax.struct import dataclass as pytree, field
+from ...utils.pytree import dataclass as pytree, field
 
 INF = jnp.float32(3.0e38)
 
@@ -218,7 +218,7 @@ def intersect_analytic(ana: AnalyticTable, o, d, tnear, tfar) -> AnaHit:
     v_out = jnp.where(hit_c, cyl_uv[1], v_out)
     back = jnp.where(hit_c, cyl_back, back)
 
-    # ---- nearest across prims: min + one-hot (no argmin on TPU) ----------
+    # ---- nearest across prims: min + one-hot ------------------------------
     hit_any = jnp.isfinite(t_out)
     tm = jnp.where(hit_any, t_out, jnp.inf)
     tmin = jnp.min(tm, axis=0)  # (N,)

@@ -12,7 +12,7 @@ All functions are batched over the wavefront.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree
+from ...utils.pytree import dataclass as pytree
 
 from ...math import vecops as vo
 from ...sampling import warps

@@ -1,4 +1,4 @@
-"""minecraft_map primitive — staged TPU port of the reference mc-loader
+"""minecraft_map primitive — staged port of the reference mc-loader
 (primitives/mc-loader/TraceableMinecraftMap.cpp, MapLoader.hpp, NBT.hpp).
 
 Round-4 scope (SURVEY §7 staging): the exact world decode (NBT + Anvil

@@ -1,7 +1,7 @@
 """Host-side tessellation of scene primitives into the unified triangle soup.
 
 The reference intersects quads/cubes analytically (Quad.cpp:72-97,
-Cube.cpp) and meshes through embree. The TPU design flattens *all* finite
+Cube.cpp) and meshes through embree. The wavefront design flattens *all* finite
 area primitives to triangles so one traversal kernel serves everything:
  - quad: 2 triangles over (base, edge0, edge1) with uv = (l0, l1) along the
    edges, winding chosen so the geometric normal equals the reference's

@@ -16,7 +16,7 @@ from typing import List
 
 import numpy as np
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree, field
+from ...utils.pytree import dataclass as pytree, field
 
 TEX_CONSTANT = 0
 TEX_CHECKER = 1
@@ -34,9 +34,7 @@ class TextureTable:
     data: jnp.ndarray  # (P, 3) float32 concatenated bitmap texels (row-major)
     # (P, 12) 2x2-block pack: row i = [c(i), c(right), c(down), c(diag)] with
     # the wrap/clamp of the +1 neighbors baked per texture at build time, so
-    # a bilinear tap is ONE row gather instead of four (each XLA gather is
-    # latency-bound at wavefront widths — measured ~0.3 ms per 35k-lane
-    # gather on v5e regardless of row width; this quarters the texture bill)
+    # a bilinear tap is ONE row gather instead of four
     data4: jnp.ndarray = None
     # (K, 9) packed [params | type] — the eval_texture header fetch is one
     # gather instead of two

@@ -1,41 +1,31 @@
-"""Per-lane gather BVH traversal — the round-4 architecture.
+"""Per-lane gather BVH traversal: the intersector every integrator uses.
 
-Fifth-generation intersector. The lockstep Pallas kernels (ops.pallas_bvh8)
-walk the UNION of a tile's node sets because every lane shares one program
-counter; measured on materialtest that union tax is ~6x on coherent camera
-tiles and ~59x on bounce tiles (COVERAGE.md round-3 MFU analysis), and the
-per-round cost is bounded by sparse-core scalar control flow, not vector
-work. This module instead gives every ray its OWN traversal cursor and runs
-the whole walk as dense XLA ops over (N,) lane vectors:
+Every ray owns its traversal cursor, and the whole walk runs as dense XLA
+operations over (N,) lane vectors [Aila & Laine 2009, per-ray traversal
+with a private stack, written as gathers instead of per-thread loads]; it
+replaces embree's packet traversal (thirdparty/embree,
+Triangle4.hpp:13-54).
 
-  * ONE row gather per lane per round. Microbenchmarks on this chip
-    (tools/bench_gather*.py) show `table[idx]` costs ~2.7 ns/row for tables
-    up to 32k rows and the cost is INDEPENDENT of row width up to 128 f32 —
-    so the node row packs all 8 child boxes + child links + octant orders,
-    and the leaf row packs 8 whole triangles, and either is one gather.
-  * The tree is 8-ary (3 collapsed binary SAH levels, largest-area greedy,
-    same recipe as ops.pallas_bvh8._collapse8) over 8-triangle leaves, so a
-    full walk is ~8-16 rounds instead of ~30 binary steps.
-  * Per-lane traversal ORDER: children are box-tested 8-at-a-time from the
-    gathered row, reordered by a precomputed per-octant permutation
-    (nearest-first along the ray direction), the nearest hit child becomes
-    the cursor and the rest are pushed far-to-near onto a per-lane stack
-    held as D parallel (N,) registers (one-hot select push/pop, ~0.3 ns per
-    lane — measured). Entries carry their box tmin so stale entries
-    (>= best-t at pop time) are skipped without a gather.
+  * ONE row gather per lane per round. A node row packs all 8 child boxes
+    and child links; a leaf row packs 8 whole triangles. Rows are stored
+    row-major, (M, 81) float32, so a lane reads 324 contiguous bytes.
+  * The tree is 8-ary (3 collapsed binary SAH levels, largest-area greedy)
+    over 8-triangle leaves, so a full walk is ~8-16 rounds instead of ~30
+    binary steps.
+  * Per-lane traversal ORDER: the 8 children are box-tested from the
+    gathered row, the nearest hit child becomes the cursor and the rest
+    wait on a per-lane bitstack (see _phase).
   * Leaf rounds run 8 exact-f32 Moller-Trumbore tests straight from the
     gathered row. Node lanes and leaf lanes share every round's vector code
-    (masked); divergence costs flops, never gathers — and on this VPU the
-    flops are ~10x cheaper than the gather.
+    (masked); divergence costs arithmetic, never extra gathers.
+  * Straggler phases (_traverse) compact the lanes still walking into
+    narrower buffers, so the tail of slow rays does not hold the full
+    wavefront.
 
-Unlike the lockstep kernels, cost is per-ray-visit, not per-tile-union:
-incoherent bounce wavefronts pay the same ~ns/visit as camera rays. This is
-the standard GPU megakernel traversal shape [Aila & Laine 2009] recast with
-XLA gathers instead of per-thread loads, replacing embree's packet
-traversal (thirdparty/embree, Triangle4.hpp:13-54) as the production
-intersector.
-
-Pure jnp: runs on CPU for the test suite and on TPU for production.
+Cost is per ray visit, so incoherent bounce wavefronts pay the same per
+visit as camera rays. Plain jnp: the same code runs on the CPU for the tests
+and on the GPU. The row layout and the phase constants were chosen by
+timing alternatives on an H100 (PERF.md, "Bring-up findings").
 """
 from __future__ import annotations
 
@@ -44,7 +34,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax.struct import dataclass as pytree, field
+from ..utils.pytree import dataclass as pytree, field
 
 from .intersect import Hit, INF
 
@@ -53,8 +43,7 @@ K_ROW = 81  # unified row width (see layout below)
 COL_FLAG = 80
 
 # node row:  [0:8]=minx [8:16]=miny [16:24]=minz [24:32]=maxx [32:40]=maxy
-#            [40:48]=maxz [48:56]=child row ids (-1 none) [56:64]=octant
-#            perms (24-bit packed, exact in f32) [80]=0
+#            [40:48]=maxz [48:56]=child row ids (-1 none) [80]=0
 # leaf row:  [0:8]=v0x [8:16]=v0y [16:24]=v0z [24:32]=e1x [32:40]=e1y
 #            [40:48]=e1z [48:56]=e2x [56:64]=e2y [64:72]=e2z
 #            [72:80]=prim ids (-1 empty) [80]=1
@@ -62,9 +51,7 @@ COL_FLAG = 80
 
 @pytree
 class GatherBvhPack:
-    rows: jnp.ndarray  # (K_ROW, M) f32 unified node/leaf rows, TRANSPOSED:
-    # slot dim lives in sublanes so one gather yields (K, N) tiles whose
-    # 8-row slices are full (8, 128) VPU tiles — no cross-lane extraction.
+    rows: jnp.ndarray  # (M, K_ROW) f32 unified node/leaf rows
     root: int = field(pytree_node=False, default=0)
     n_rows: int = field(pytree_node=False, default=0)
     depth: int = field(pytree_node=False, default=8)  # 8-ary depth (stack bound)
@@ -135,73 +122,46 @@ def build_gather_pack(v0, e1, e2, leaf_size: int = TRIS_PER_LEAF):
     assert M < (1 << 24) and t < (1 << 24)
     rows = np.zeros((M, K_ROW), np.float32)
 
-    centers = 0.5 * (nmin + nmax)
-    sgn = np.array(
-        [
-            [1 if o & 4 else -1, 1 if o & 2 else -1, 1 if o & 1 else -1]
-            for o in range(8)
-        ],
-        np.float32,
-    )  # octant bit layout: (dx>=0)<<2 | (dy>=0)<<1 | (dz>=0)
-
-    depth8 = np.zeros(m8, np.int32)
+    # node rows: slot c holds binary node slots[c] (absent: inverted box)
+    slots = np.full((m8, 8), -1, np.int64)
+    for id8, sl in enumerate(nodes8):
+        slots[id8, :len(sl)] = sl
+    has = slots >= 0
+    s0 = np.maximum(slots, 0)
+    for k in range(3):
+        rows[:m8, 8 * k:8 * k + 8] = np.where(has, nmin[s0, k], 3e38)
+        rows[:m8, 24 + 8 * k:32 + 8 * k] = np.where(has, nmax[s0, k], -3e38)
+    inner_id = np.array([memo.get(int(b), -1) for b in s0.ravel()]).reshape(m8, 8)
+    child = np.where(count[s0] > 0, leaf_row[s0], inner_id)
+    rows[:m8, 48:56] = np.where(has, child, -1)
+    # 8-ary depth (stack bound): children always have larger ids than
+    # their parent, so one reverse sweep sees every child first
+    depth8 = np.ones(m8, np.int32)
+    inner_child = np.where(has & (count[s0] == 0), inner_id, -1)
     for id8 in range(m8 - 1, -1, -1):
-        slots = nodes8[id8]
-        r = rows[id8]
-        r[0:8] = 3e38  # absent child: inverted box (never hits)
-        r[8:16] = 3e38
-        r[16:24] = 3e38
-        r[24:48] = -3e38
-        r[48:56] = -1.0
-        cs = []
-        dmax = 0
-        for c, s in enumerate(slots):
-            r[0 + c] = nmin[s][0]
-            r[8 + c] = nmin[s][1]
-            r[16 + c] = nmin[s][2]
-            r[24 + c] = nmax[s][0]
-            r[32 + c] = nmax[s][1]
-            r[40 + c] = nmax[s][2]
-            if count[s] > 0:
-                r[48 + c] = float(leaf_row[s])
-            else:
-                r[48 + c] = float(memo[s])
-                dmax = max(dmax, int(depth8[memo[s]]))
-            cs.append(centers[s])
-        depth8[id8] = 1 + dmax
-        cs = np.asarray(cs, np.float32)
-        for o in range(8):
-            key = cs @ sgn[o]
-            perm = list(np.argsort(key, kind="stable")) + list(
-                range(len(slots), 8)
-            )
-            packed = 0
-            for kk, c in enumerate(perm):
-                packed |= int(c) << (3 * kk)
-            r[56 + o] = float(packed)  # < 2^24, exact in f32
-        # flag stays 0
+        c = inner_child[id8]
+        c = c[c >= 0]
+        if len(c):
+            depth8[id8] = 1 + depth8[c].max()
 
-    for b in np.where(leaf_mask)[0]:
-        rid = int(leaf_row[b])
-        r = rows[rid]
-        f, c = int(bvh.first[b]), int(count[b])
-        gid = bvh.prim_order[f : f + c]
-        r[72:80] = -1.0
-        for i2, g in enumerate(gid):
-            r[0 + i2] = v0[g][0]
-            r[8 + i2] = v0[g][1]
-            r[16 + i2] = v0[g][2]
-            r[24 + i2] = e1[g][0]
-            r[32 + i2] = e1[g][1]
-            r[40 + i2] = e1[g][2]
-            r[48 + i2] = e2[g][0]
-            r[56 + i2] = e2[g][1]
-            r[64 + i2] = e2[g][2]
-            r[72 + i2] = float(g)
-        r[COL_FLAG] = 1.0
+    # leaf rows: up to 8 triangles each, prim id -1 in empty slots
+    leaves = np.where(leaf_mask)[0]
+    rid = leaf_row[leaves]
+    first, cnt = bvh.first[leaves], count[leaves]
+    rows[rid, 72:80] = -1.0
+    for i in range(TRIS_PER_LEAF):
+        ok = i < cnt
+        g = bvh.prim_order[np.minimum(first + i, t - 1)][ok]
+        r = rid[ok]
+        for k in range(3):
+            rows[r, i + 8 * k] = v0[g, k]
+            rows[r, 24 + i + 8 * k] = e1[g, k]
+            rows[r, 48 + i + 8 * k] = e2[g, k]
+        rows[r, 72 + i] = g
+    rows[rid, COL_FLAG] = 1.0
 
     return GatherBvhPack(
-        rows=jnp.asarray(np.ascontiguousarray(rows.T)),
+        rows=jnp.asarray(rows),
         root=0,
         n_rows=M,
         depth=max(1, int(depth8[0])),
@@ -219,29 +179,18 @@ def _phase(
 ):
     """Bitstack per-lane traversal.
 
-    The first gather-traversal generation kept a full (code, tmin) entry
-    stack as D~56 parallel (N,) registers; rewriting ~112 arrays per round
-    made each round HBM-bound (~75 ns/lane measured). This version keeps a
-    BITSTACK instead: per tree level just (node row id, pending-children
-    bitmask) — <= 2*depth small int32 arrays. A pop re-gathers the parent
-    row and re-tests its boxes against the CURRENT best_t (gathers are
-    ~2.7 ns/lane; the re-test is free pruning), and the nearest pending
+    A full (code, tmin) entry stack would be D~56 parallel (N,) arrays,
+    ~112 of them rewritten every round. This walk keeps a BITSTACK instead:
+    per tree level just (node row id, pending-children bitmask) — <= 2*depth
+    small int32 arrays. A pop re-gathers the parent row and re-tests its
+    boxes against the CURRENT best_t (the re-test prunes), and the nearest pending
     child is picked exactly by min of slab tmin + equality one-hot — no
     octant permutation tables. A node whose remaining hit set is empty
     descends tail-call style without pushing, which removes most resume
     rounds.
 
-    TPU layout notes (measured on the bench chip, tools/bench_gtrav3.py +
-    /tmp probe series round 4):
-      * the row gather itself is ~2.8 ns/lane/round and its cost is the
-        same whether it lands as (N, K) or (K, N);
-      * per-column extraction from an (N, K) gather costs ~0.5-1 ns per
-        column — the row is gathered TRANSPOSED (K, N) so every operand
-        is a contiguous (8, N) sublane tile and the whole box + MT math
-        adds only ~1 ns over the gather;
-      * `argmin` / `take_along_axis` across sublanes cost ~15 ns/lane
-        EACH on this chip — all selections below use min + equality
-        one-hot + masked sum instead, which is fused for free.
+    Selections use min + equality one-hot + masked sum rather than argmin
+    or take_along_axis, so they fuse with the surrounding arithmetic.
 
     Runs rounds on ALL lanes until the LIVE count drops to `stop_n` (0 =
     drain completely) or `max_rounds` is hit. `active` selects the lanes
@@ -265,9 +214,6 @@ def _phase(
     # bitstack levels live as (L, N) arrays: every push/pop/consume is ONE
     # vectorized op over all levels instead of an L-deep unrolled chain of
     # (N,) selects, and phase compaction gathers 4 arrays instead of 4L
-    # (each XLA gather is latency-bound at these widths, so gather COUNT is
-    # the cost metric — measured round-5 trace: the per-level layout spent
-    # ~3 ms/iteration in compaction gathers alone)
     larange = jnp.arange(L, dtype=jnp.int32)[:, None]  # (L, 1)
     if state0 is None:
         cur0 = jnp.where(active, jnp.int32(root), DEAD)
@@ -288,7 +234,8 @@ def _phase(
         (rounds, cur, pend, lvl, pid, pmask, nc, nt,
          best_t, best_p, bu, bv) = state
         live = cur >= 0
-        rT = rows[:, jnp.clip(cur, 0, m - 1)]  # (K, N) THE gather
+        # THE gather: one (N, K) row block, used as (K, N) column slices
+        rT = rows[jnp.clip(cur, 0, m - 1)].T
         is_leaf = rT[COL_FLAG] > 0.5
         node_on = live & ~is_leaf
         leaf_on = live & is_leaf
@@ -431,18 +378,9 @@ def _phase(
         rounds, cur = state[0], state[1]
         return (jnp.sum(cur != DEAD) > stop_n) & (rounds < max_rounds)
 
-    def body_n(state):
-        # UNROLL rounds per while-loop iteration: the live-count reduction in
-        # `cond` serializes VPU -> scalar -> branch every round; grouping
-        # rounds amortizes that sync (dead lanes in the extra rounds are
-        # masked no-ops). Measured sweep on the bench chip: see module docs.
-        for _ in range(_UNROLL):
-            state = body(state)
-        return state
-
     state = jax.lax.while_loop(
         cond,
-        body_n,
+        body,
         (
             jnp.int32(0),
             cur0,
@@ -478,13 +416,11 @@ def _compact_indices(live, n_out):
 
 
 # straggler compaction: a phase stops once live lanes fall under 1/PHASE_DIV
-# of its width; survivors re-gather into a width/PHASE_DIV buffer and RESTART
-# from the root pruned by their carried best_t. Two compactions, then drain.
-import os as _os
-
-PHASE_DIV = int(_os.environ.get("TUNGSTEN_PHASE_DIV", "8"))
-MIN_PHASE = int(_os.environ.get("TUNGSTEN_MIN_PHASE", "4096"))
-_UNROLL = int(_os.environ.get("TUNGSTEN_TRAV_UNROLL", "1"))
+# of its width; survivors (with their walk state) re-gather into a
+# width/PHASE_DIV buffer and resume. Phases shrink down to MIN_PHASE, then
+# the last one drains.
+PHASE_DIV = 8
+MIN_PHASE = 4096
 
 
 @functools.partial(

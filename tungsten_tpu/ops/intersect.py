@@ -1,23 +1,19 @@
-"""Device-side ray-scene intersection.
+"""Ray-triangle intersection: the Hit record, Möller-Trumbore, and the
+brute-force query.
 
-Replaces embree's rtcIntersect/rtcOccluded (SURVEY.md §2.3, L4). Two paths:
-
- - `intersect_brute`: tiled all-pairs Möller-Trumbore, scanned over triangle
-   chunks. O(N*T) but fully dense VPU work — for small scenes (< a few K tris)
-   this *beats* any divergent traversal on TPU.
- - `intersect_bvh`: lockstep skip-pointer traversal of the flat BVH from
-   accel/bvh.py. Per-lane state is one int32 node cursor; each step gathers
-   one node's AABB + up to LEAF_SIZE triangle bundles (cf. the reference's
-   SIMD Triangle4 SoA pattern, src/core/primitives/Triangle4.hpp:13-54).
-
-Both return a Hit pytree. The geometry arrays come pre-permuted in BVH leaf
-order; hit.prim is the *global* triangle index after permutation.
+Replaces embree's rtcIntersect/rtcOccluded (SURVEY.md §2.3, L4) together
+with ops.gather_bvh, the BVH walk. `intersect_brute` is tiled all-pairs
+Möller-Trumbore, scanned over triangle chunks: O(N*T), fully dense, used
+for scenes of at most 64 triangles or with `scene_bvh: false`, and the
+reference the walk is tested against. The geometry arrays come
+pre-permuted in BVH leaf order; hit.prim is the *global* triangle index
+after permutation.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree
+from ..utils.pytree import dataclass as pytree
 
 from ..math import vecops as vo
 
@@ -29,42 +25,6 @@ class TriangleSoA:
     v0: jnp.ndarray  # (T, 3)
     e1: jnp.ndarray  # (T, 3)  p1 - p0
     e2: jnp.ndarray  # (T, 3)  p2 - p0
-
-
-@pytree
-class BvhSoA:
-    node_min: jnp.ndarray  # (M, 3)
-    node_max: jnp.ndarray  # (M, 3)
-    first: jnp.ndarray  # (M,)
-    count: jnp.ndarray  # (M,)  0 = inner node
-    skip: jnp.ndarray  # (M,)
-    # packed mirrors for single-gather traversal: ints stored as exact f32
-    # (all indices < 2^24). nodes: [min3 | max3 | first | count | skip]
-    nodes_packed: jnp.ndarray = None  # (M, 9) f32
-    tris_packed: jnp.ndarray = None  # (T, 9) f32 [v0 | e1 | e2]
-
-
-def pack_bvh(bvh: "BvhSoA", tris: TriangleSoA) -> "BvhSoA":
-    nodes = jnp.concatenate(
-        [
-            bvh.node_min,
-            bvh.node_max,
-            bvh.first.astype(jnp.float32)[:, None],
-            bvh.count.astype(jnp.float32)[:, None],
-            bvh.skip.astype(jnp.float32)[:, None],
-        ],
-        axis=1,
-    )
-    tp = jnp.concatenate([tris.v0, tris.e1, tris.e2], axis=1)
-    return BvhSoA(
-        node_min=bvh.node_min,
-        node_max=bvh.node_max,
-        first=bvh.first,
-        count=bvh.count,
-        skip=bvh.skip,
-        nodes_packed=nodes,
-        tris_packed=tp,
-    )
 
 
 @pytree
@@ -142,163 +102,4 @@ def intersect_brute(tris: TriangleSoA, o, d, tnear, tfar, chunk: int = 512) -> H
     )
     (bt, bp, bu, bv), _ = jax.lax.scan(body, init, jnp.arange(n_chunks))
     bp = jnp.where(bt < INF, bp, -1)
-    return Hit(t=bt, prim=bp, u=bu, v=bv)
-
-
-def _slab_test(o, inv_d, bmin, bmax, tnear, tfar):
-    t0 = (bmin - o) * inv_d
-    t1 = (bmax - o) * inv_d
-    tmin = jnp.max(jnp.minimum(t0, t1), axis=-1)
-    tmax = jnp.min(jnp.maximum(t0, t1), axis=-1)
-    return (tmin <= tmax) & (tmax > tnear) & (tmin < tfar)
-
-
-def intersect_bvh(
-    bvh: BvhSoA, tris: TriangleSoA, o, d, tnear, tfar, leaf_size: int = 4,
-    any_hit: bool = False, inner_steps: int = 8,
-) -> Hit:
-    """Lockstep skip-pointer traversal, two-phase form.
-
-    Per outer while iteration: `inner_steps` cheap node-advance steps (one
-    packed (N, 9) gather + slab test each; lanes arriving at a hit leaf
-    *stall*), then one bundled leaf phase (a single (N, L, 9) triangle gather
-    + L masked Möller-Trumbore tests for stalled lanes). This pays triangle
-    work per leaf *visit* instead of per traversal step, and collapses the
-    ~15 scattered per-step gathers of the naive loop into 2 — the dominant
-    cost on TPU where each gather is a real kernel.
-
-    any_hit=True: shadow-ray mode — lanes stop at the first accepted hit
-    (farT clamps still apply), returning some hit, not the nearest.
-    """
-    if bvh.nodes_packed is not None:
-        return _intersect_bvh_packed(bvh, o, d, tnear, tfar, leaf_size, any_hit, inner_steps)
-    n = o.shape[0]
-    n_nodes = bvh.node_min.shape[0]
-    inv_d = 1.0 / jnp.where(d == 0.0, 1e-30, d)
-
-    def cond(state):
-        node = state[0]
-        return jnp.any(node < n_nodes)
-
-    def body(state):
-        node, bt, bp, bu, bv = state
-        active = node < n_nodes
-        ni = jnp.clip(node, 0, n_nodes - 1)
-        bmin = bvh.node_min[ni]
-        bmax = bvh.node_max[ni]
-        cnt = bvh.count[ni]
-        first = bvh.first[ni]
-        box_hit = _slab_test(o, inv_d, bmin, bmax, tnear, jnp.minimum(tfar, bt)) & active
-        is_leaf = cnt > 0
-
-        # leaf intersection: fixed-width bundle with count masking
-        do_leaf = box_hit & is_leaf
-        for j in range(leaf_size):
-            ti = jnp.clip(first + j, 0, tris.v0.shape[0] - 1)
-            t, u, v, hit = ray_tri(o, d, tris.v0[ti], tris.e1[ti], tris.e2[ti], tnear, jnp.minimum(tfar, bt))
-            hit = hit & do_leaf & (j < cnt)
-            better = hit & (t < bt)
-            bt = jnp.where(better, t, bt)
-            bp = jnp.where(better, ti, bp)
-            bu = jnp.where(better, u, bu)
-            bv = jnp.where(better, v, bv)
-
-        descend = box_hit & ~is_leaf
-        nxt = jnp.where(descend, node + 1, bvh.skip[ni])
-        if any_hit:
-            nxt = jnp.where(bp >= 0, n_nodes, nxt)
-        node = jnp.where(active, nxt, node)
-        return node, bt, bp, bu, bv
-
-    init = (
-        jnp.zeros((n,), jnp.int32),
-        jnp.minimum(tfar, INF),
-        jnp.full((n,), -1, jnp.int32),
-        jnp.zeros((n,)),
-        jnp.zeros((n,)),
-    )
-    node, bt, bp, bu, bv = jax.lax.while_loop(cond, body, init)
-    bt = jnp.where(bp >= 0, bt, INF)
-    return Hit(t=bt, prim=bp, u=bu, v=bv)
-
-
-def _intersect_bvh_packed(
-    bvh: BvhSoA, o, d, tnear, tfar, leaf_size: int, any_hit: bool, inner_steps: int
-) -> Hit:
-    n = o.shape[0]
-    nodes = bvh.nodes_packed
-    tris = bvh.tris_packed
-    n_nodes = nodes.shape[0]
-    n_tris = tris.shape[0]
-    inv_d = 1.0 / jnp.where(d == 0.0, 1e-30, d)
-    end = jnp.int32(n_nodes)
-
-    def node_step(node, bt):
-        """One masked advance; returns (new_node, stalled_at_leaf)."""
-        active = node < end
-        row = nodes[jnp.clip(node, 0, n_nodes - 1)]
-        box_hit = _slab_test(o, inv_d, row[:, 0:3], row[:, 3:6], tnear, jnp.minimum(tfar, bt)) & active
-        is_leaf = row[:, 7] > 0.5
-        stall = box_hit & is_leaf
-        skip = row[:, 8].astype(jnp.int32)
-        nxt = jnp.where(box_hit & ~is_leaf, node + 1, skip)
-        return jnp.where(active & ~stall, nxt, node), stall
-
-    def cond(state):
-        return jnp.any(state[0] < end)
-
-    def body(state):
-        node, bt, bp, bu, bv = state
-
-        def inner(_, carry):
-            node, stalled = carry
-            nn, stall = node_step(node, bt)
-            # once stalled, hold position until the leaf phase
-            return jnp.where(stalled, node, nn), stalled | stall
-
-        node, stalled = jax.lax.fori_loop(
-            0, inner_steps, inner, (node, jnp.zeros((n,), bool))
-        )
-
-        # leaf phase: bundled gather + masked MT over the leaf's triangles
-        row = nodes[jnp.clip(node, 0, n_nodes - 1)]
-        first = row[:, 6].astype(jnp.int32)
-        cnt = row[:, 7].astype(jnp.int32)
-        at_leaf = stalled
-        idx = jnp.clip(first[:, None] + jnp.arange(leaf_size)[None, :], 0, n_tris - 1)
-        trows = tris[idx]  # (N, L, 9)
-        t, u, v, hit = ray_tri(
-            o[:, None, :],
-            d[:, None, :],
-            trows[..., 0:3],
-            trows[..., 3:6],
-            trows[..., 6:9],
-            tnear[:, None],
-            jnp.minimum(tfar, bt)[:, None],
-        )
-        lane_mask = at_leaf[:, None] & (jnp.arange(leaf_size)[None, :] < cnt[:, None])
-        t = jnp.where(hit & lane_mask, t, INF)
-        j = jnp.argmin(t, axis=1)
-        tbest = jnp.take_along_axis(t, j[:, None], 1)[:, 0]
-        better = tbest < bt
-        bt = jnp.where(better, tbest, bt)
-        bp = jnp.where(better, jnp.take_along_axis(idx, j[:, None], 1)[:, 0], bp)
-        bu = jnp.where(better, jnp.take_along_axis(u, j[:, None], 1)[:, 0], bu)
-        bv = jnp.where(better, jnp.take_along_axis(v, j[:, None], 1)[:, 0], bv)
-
-        skip = row[:, 8].astype(jnp.int32)
-        node = jnp.where(at_leaf, skip, node)
-        if any_hit:
-            node = jnp.where(bp >= 0, end, node)
-        return node, bt, bp, bu, bv
-
-    init = (
-        jnp.zeros((n,), jnp.int32),
-        jnp.minimum(tfar, INF),
-        jnp.full((n,), -1, jnp.int32),
-        jnp.zeros((n,)),
-        jnp.zeros((n,)),
-    )
-    node, bt, bp, bu, bv = jax.lax.while_loop(cond, body, init)
-    bt = jnp.where(bp >= 0, bt, INF)
     return Hit(t=bt, prim=bp, u=bu, v=bv)

@@ -2,7 +2,7 @@
 
 The reference's parallelism is a shared-memory thread pool over image tiles
 (src/core/thread/ThreadPool.hpp:20-56); its multi-machine story is manual
-seed-splitting + hdrmanip --merge (SURVEY.md §2.4). The TPU-native design:
+seed-splitting + hdrmanip --merge (SURVEY.md §2.4). The wavefront design:
 
  - the wavefront (one lane per pixel-sample) is *data-sharded* over a 1-D
    device mesh ("shard" axis) with `jax.sharding.NamedSharding`;
@@ -10,7 +10,8 @@ seed-splitting + hdrmanip --merge (SURVEY.md §2.4). The TPU-native design:
    replicated into every chip's HBM — scenes are small relative to HBM;
  - per-device framebuffer partials need no collectives for the pixel-sharded
    path tracer (each device owns its pixels); splatting integrators (light
-   tracer, MLT, photon pass) psum their splat buffers over ICI;
+   tracer, MLT, photon pass) psum their splat buffers over the device
+   interconnect;
  - lane ids are *global*, so the stateless counter RNG makes renders bitwise
    identical for any device count.
 """

@@ -1,6 +1,6 @@
 """Device-side discrete distributions (CDF warps).
 
-TPU-native analogs of src/core/sampling/Distribution1D.hpp and
+Wavefront analogs of src/core/sampling/Distribution1D.hpp and
 Distribution2D.hpp:11-60: CDFs are built host-side (numpy) at scene-flatten
 time and sampled on device with vectorized binary search
 (jnp.searchsorted over the whole wavefront).
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree
+from ..utils.pytree import dataclass as pytree
 
 
 @pytree
@@ -52,9 +52,8 @@ class Distribution2D:
     Mirrors Distribution2D.hpp:11-60 semantics: sample() returns integer
     cell (x, y) plus the discrete pdf; continuous uv is
     (cell + remapped u) / res. The reference samples by two binary
-    searches; on TPU that is ~22 serialized gather rounds per lane
-    (measured 158 ns/lane on a 2k envmap — the NEE hot spot), while the
-    alias method is exactly two bundled gathers. The CDF arrays are kept
+    searches, ~22 serialized gather rounds per lane on a 2k envmap, while
+    the alias method is exactly two bundled gathers. The CDF arrays are kept
     for pdf_at lookups (env_direct_pdf)."""
 
     marginal_pdf: jnp.ndarray  # (h,)
@@ -66,7 +65,7 @@ class Distribution2D:
     joint_pdf: jnp.ndarray = None  # (h*w,) discrete cell prob
     # (h*w, 4) packed [stay-prob, alias-cell, joint_pdf(cell), joint_pdf
     # (alias)] — one row gather answers the whole alias draw (cell ids
-    # < 2^20 are exact in f32; gathers are latency-bound per op on TPU)
+    # < 2^20 are exact in f32)
     alias_pack: jnp.ndarray = None
 
     @property
@@ -195,7 +194,7 @@ def _searchsorted_strided(flat, base, u, row_len, max_len=None):
 
     flat: concatenated sorted rows; base, u: (...,); row_len: int or per-lane
     array. Branchless binary search with ceil(log2(max_len)) scalar gathers —
-    VPU/gather friendly.
+    vector- and gather-friendly.
     """
     import math
 

@@ -2,13 +2,13 @@
 
 The reference threads a stateful per-path PathSampleGenerator (PCG32 /
 Sobol, src/core/sampling/UniformSampler.hpp:38, SobolPathSampler.hpp) through
-the recursive tracer. The TPU-native equivalent is a *stateless, counter-based*
+the recursive tracer. The wavefront equivalent is a *stateless, counter-based*
 generator: every random number is a pure function of
 
     (seed, lane id, dimension index)
 
 hashed with PCG4D [Jarzynski & Olano 2020, "Hash Functions for GPU Rendering"]
-— a handful of VPU integer ops per draw across the whole wavefront, no state
+— a handful of vector integer ops per draw across the whole wavefront, no state
 to thread, no sequential dependence. Each call site consumes one dimension;
 the dimension counter lives in the Sampler pytree as a traced int32, so replay
 (needed by MLT bootstrap, checkpoint resume, debugging) is exact: the same
@@ -26,7 +26,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax.struct import dataclass as pytree
+from ..utils.pytree import dataclass as pytree, field
 
 _INV_2_24 = jnp.float32(1.0 / (1 << 24))
 
@@ -188,7 +188,7 @@ class Sampler:
     table: jnp.ndarray = None
     samp_idx: jnp.ndarray = None  # (N,) u32 per-pixel sample number (sobol)
     pix_key: jnp.ndarray = None  # (N,) u32 pixel id (sobol scramble key)
-    strat: bool = __import__("flax").struct.field(pytree_node=False, default=False)
+    strat: bool = field(pytree_node=False, default=False)
     # second component of the last pair draw, awaiting the next next_1d()
     # call (two 1D sites share one _draw; None-ness is static per trace
     # position, so the pairing costs no runtime branching)
@@ -198,7 +198,7 @@ class Sampler:
     # stat_off counts pair draws since construction — a PYTHON int (every
     # _advance passes a literal), so the window offset is trace-static.
     win: jnp.ndarray = None
-    stat_off: int = __import__("flax").struct.field(pytree_node=False, default=0)
+    stat_off: int = field(pytree_node=False, default=0)
 
     @staticmethod
     def create(seed, lane_ids: jnp.ndarray, table=None, samp_idx=None,
@@ -341,7 +341,7 @@ class Sampler:
 
 def sobol02(index):
     """Kollig-Keller (0,2)-sequence point for a scalar sample index:
-    (van-der-Corput radical inverse, Sobol' second dimension). The TPU
+    (van-der-Corput radical inverse, Sobol' second dimension). The
     stand-in for the reference's SobolPathSampler on the image/lens dims —
     per-lane Cranley-Patterson rotations decorrelate pixels
     (SobolPathSampler.hpp:20-23 uses per-pixel scrambles the same way)."""

@@ -87,8 +87,8 @@ def tent_filter_sample(u):
     """Analytic inverse-CDF sample of the tent (triangle) filter on [-1, 1].
 
     The reference importance-samples a 31-bin tabulated CDF of the filter
-    (ReconstructionFilter.hpp:19-33); on TPU the exact analytic inverse is
-    cheaper and strictly better stratified.
+    (ReconstructionFilter.hpp:19-33); the exact analytic inverse needs no
+    table and is strictly better stratified.
     """
     return jnp.where(u < 0.5, jnp.sqrt(2.0 * u) - 1.0, 1.0 - jnp.sqrt(jnp.maximum(2.0 - 2.0 * u, 0.0)))
 

@@ -1,6 +1,6 @@
 """Scene flattening: SceneDocument -> device-resident FlatScene tables.
 
-The TPU analog of TraceableScene (src/core/renderer/TraceableScene.hpp:25-274):
+The wavefront analog of TraceableScene (src/core/renderer/TraceableScene.hpp:25-274):
 pointer-based scene objects become index-based SoA tables — triangle soup with
 per-triangle material/light ids, a flat skip-pointer BVH, a material parameter
 table, a texture table, an area-light table with per-light triangle CDFs, and
@@ -14,7 +14,7 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-from flax.struct import dataclass as pytree, field
+from ..utils.pytree import dataclass as pytree, field
 
 from ..accel.bvh import build_bvh_cached
 from ..io.meshio import load_mesh, compute_smooth_normals
@@ -23,11 +23,7 @@ from ..models.bsdfs import MaterialTable, pack_materials
 from ..models.media import MediumTable, pack_media
 from ..models.primitives import analytic, tessellate
 from ..models.textures import TextureBuilder, TextureTable
-from ..ops.intersect import BvhSoA, TriangleSoA, pack_bvh
-from ..ops.pallas_intersect import PallasTriPack, build_tri_pack
-from ..ops.pallas_bvh import PallasBvhPack, build_bvh_pack
-from ..ops.pallas_bvh2 import PallasBvhPack3, build_bvh_pack3
-from ..ops.pallas_bvh8 import PallasBvhPack8, build_bvh_pack8
+from ..ops.intersect import TriangleSoA
 from ..sampling.distributions import Distribution2D
 from .load import SceneDocument
 
@@ -211,11 +207,7 @@ class FlatScene:
     # (T, 20) packed shading row [ng | n0 n1 n2 | uv0 uv1 uv2 | mat | light]
     # so hit shading is ONE gather (gathers are latency-bound per op)
     shade_pack: jnp.ndarray
-    bvh: BvhSoA
-    ptris: PallasTriPack
-    pbvh: "PallasBvhPack | None"
-    pbvh8: "PallasBvhPack8 | None"  # 8-wide ordered closest-hit kernel
-    pbvh3: "PallasBvhPack3 | None"  # skip-walk any-hit (occlusion) kernel
+    bounds: jnp.ndarray  # (2, 3) [min; max] over all triangles
     gbvh: "GatherBvhPack | None"  # gen-5 per-lane gather traversal (default)
     ana: "analytic.AnalyticTable | None"  # analytic sphere/disk/cylinder prims
     materials: MaterialTable
@@ -232,45 +224,6 @@ class FlatScene:
     # seen by an escaping ray (the last env masks them everywhere)
     envs: tuple = ()
 
-
-
-def _maybe_bvh_pack(v0, e1, e2):
-    """Packet-traversal pack when the whole BVH fits in VMEM (~10 MB)."""
-    if len(v0) <= 64:
-        return None
-    pack = build_bvh_pack(v0, e1, e2)
-    if pack is not None and pack.vmem_bytes > 10 * 1024 * 1024:
-        return None
-    return pack
-
-
-def _padded_vmem(arr):
-    """True VMEM footprint: the minor dim tiles up to 128 lanes."""
-    r, c = arr.shape
-    return r * ((c + 127) // 128) * 128 * 4
-
-
-def _maybe_bvh_packs_v2(v0, e1, e2):
-    """Current-generation kernel packs: the 8-wide ordered closest-hit
-    pack (ops.pallas_bvh8) and the skip-walk any-hit pack (ops.pallas_bvh2),
-    sharing one Woop plane-slab buffer (identical tree via the disk-cached
-    builder). Leaf size 128 keeps the plane slab lane-aligned (3*128 wide,
-    zero padding) — at leaf 32 the 96-wide slab pads to 128 lanes and the
-    16x-padded box table pushes the kernel over the 16 MB VMEM scope.
-    None when the padded footprint spills VMEM (callers fall back to the
-    HBM-streaming intersector)."""
-    if len(v0) <= 64:
-        return None, None
-    p8 = build_bvh_pack8(v0, e1, e2, leaf_size=128)
-    if p8 is None:
-        return None, None
-    footprint = _padded_vmem(p8.planes) + _padded_vmem(p8.boxes)
-    if footprint > 13 * 1024 * 1024:
-        return None, None
-    p3 = build_bvh_pack3(v0, e1, e2, leaf_size=128)
-    # identical (bvh, leaf) -> identical planes/prim_map; share the buffers
-    p3 = p3.replace(planes=p8.planes, prim_map=p8.prim_map)
-    return p8, p3
 
 
 # default ceiling for the BDPT/MLT subpath vertex cap when the scene does
@@ -1059,19 +1012,10 @@ def flatten_scene(doc: SceneDocument) -> FlatScene:
     tris_soa = TriangleSoA(
         v0=jnp.asarray(p0), e1=jnp.asarray(p1 - p0), e2=jnp.asarray(p2 - p0)
     )
-    bvh_soa = pack_bvh(
-        BvhSoA(
-            node_min=jnp.asarray(bvh.node_min),
-            node_max=jnp.asarray(bvh.node_max),
-            first=jnp.asarray(bvh.first),
-            count=jnp.asarray(bvh.count),
-            skip=jnp.asarray(bvh.skip),
-        ),
-        tris_soa,
-    )
-    _pb8, _pb3 = _maybe_bvh_packs_v2(p0, p1 - p0, p2 - p0)
+    # the BVH walk's pack, for the scenes that take the walk (see
+    # integrators.path_tracer._walks_bvh)
     _gb = None
-    if len(p0) > 64:
+    if meta.use_bvh and len(p0) > 64:
         from ..ops.gather_bvh import build_gather_pack
 
         _gb = build_gather_pack(p0, p1 - p0, p2 - p0)
@@ -1129,11 +1073,7 @@ def flatten_scene(doc: SceneDocument) -> FlatScene:
         tri_med_ext=jnp.asarray(tri_med_ext),
         tri_med_override=jnp.asarray(tri_med_ov),
         tri_tan=jnp.asarray(tri_tan),
-        bvh=bvh_soa,
-        ptris=build_tri_pack(p0, p1 - p0, p2 - p0),
-        pbvh=_maybe_bvh_pack(p0, p1 - p0, p2 - p0),
-        pbvh8=_pb8,
-        pbvh3=_pb3,
+        bounds=jnp.asarray(np.stack([bvh.node_min[0], bvh.node_max[0]])),
         gbvh=_gb,
         ana=ana_table,
         materials=materials,

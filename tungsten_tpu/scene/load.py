@@ -126,7 +126,7 @@ def parse_scene(raw: dict, path: str = ".") -> SceneDocument:
 
     def expand_instances(prims):
         """Flatten "instances" primitives (Instance.cpp:60-93) into copies of
-        their masters with composed matrix transforms: a TPU scene is one
+        their masters with composed matrix transforms: a flattened scene is one
         static triangle soup, so instancing happens at load. Binary instance
         resource files (instancesA/B streams) are not supported."""
         from ..math.transform import mat4_from_json

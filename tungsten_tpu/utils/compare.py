@@ -56,3 +56,21 @@ def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
     num = (2 * mu_ab + c1) * (2 * s_ab + c2)
     den = (mu_aa + mu_bb + c1) * (s_aa + s_bb + c2)
     return float(np.mean(num / den))
+
+
+def golden_agreement(img: np.ndarray, ref: np.ndarray, f: int = 4):
+    """Per-channel flux ratio of img over ref, and SSIM of the two after an
+    f x f box downsample (which averages away per-pixel noise) and a
+    gamma-2.2 tonemap: the comparison against the C++ reference renders."""
+    img = np.asarray(img, np.float64)
+    ref = np.asarray(ref, np.float64)
+
+    def down(a):
+        h, w = a.shape[0] // f * f, a.shape[1] // f * f
+        return a[:h, :w].reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
+
+    def tm(a):
+        return np.clip(np.power(np.clip(a, 0.0, None), 1.0 / 2.2), 0.0, 1.0)
+
+    ratio = img.reshape(-1, 3).mean(0) / np.maximum(ref.reshape(-1, 3).mean(0), 1e-9)
+    return ratio, ssim(tm(down(img)), tm(down(ref)))

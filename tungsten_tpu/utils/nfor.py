@@ -7,7 +7,7 @@ re-designed for array execution: where the reference dices the image into
 32x32 tiles and runs per-pixel Eigen QR solves on a thread pool, this
 implementation loops over the (2R+1)^2 window SHIFTS and accumulates the
 weighted normal equations as whole-image maps, ending in one batched
-(H*W, d, d) Cholesky solve — the natural wavefront/TPU formulation of the
+(H*W, d, d) Cholesky solve — the natural wavefront/Wavefront formulation of the
 same math (no per-pixel control flow, every step a fused elementwise map).
 
 Pipeline stages (names match the paper sections cited in denoiser.cpp):
